@@ -1,7 +1,7 @@
 # Convenience targets (the analog of the reference's top-level CMake
 # workflow; the Python package itself needs no build step).
 
-.PHONY: all native test test-tpu bench ubench lint clean
+.PHONY: all native test smoke bench ubench lint clean
 
 all: native
 
@@ -20,21 +20,20 @@ native-cmake:
 test: native
 	python -m pytest tests/ -x -q
 
-# Mosaic-compiled kernel regression suite on real TPU hardware (minutes;
-# set NDZIP_TPU_CACHE_DIR to make repeat runs take seconds).  One TPU
-# process at a time — don't run concurrently with bench.
-test-tpu:
-	NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_tpu_smoke.py -x -q
+# The codec on the GPU at full size, every entry point, streams checked
+# against golden.py.  One JAX process per card: not beside bench.
+smoke:
+	python chip_smoke.py
 
 lint:
-	python -m compileall -q ndzip_tpu tests dev examples
-	python -m pyflakes ndzip_tpu tests dev examples 2>/dev/null || true
+	python -m compileall -q ndzip_jax tests examples
+	python -m pyflakes ndzip_jax tests examples 2>/dev/null || true
 
 bench: native
 	python bench.py
 
 ubench:
-	python -m ndzip_tpu.ubench
+	python -m ndzip_jax.ubench
 
 clean:
 	rm -f native/libndzip_cpu.so

@@ -35,13 +35,13 @@ with tempfile.TemporaryDirectory() as td:
             (chunk * (k + 1)).tofile(f)
 
     packed = td / "stack.ndz"
-    subprocess.run([sys.executable, "-m", "ndzip_tpu.cli", "-e", "cpu",
+    subprocess.run([sys.executable, "-m", "ndzip_jax.cli", "-e", "cpu",
                     "-t", "float", "-n", "70", "130",
                     "-i", str(raw), "-o", str(packed)],
                    check=True, cwd=REPO)
 
     back = td / "back.f32"
-    subprocess.run([sys.executable, "-m", "ndzip_tpu.cli", "-d", "-e", "cpu",
+    subprocess.run([sys.executable, "-m", "ndzip_jax.cli", "-d", "-e", "cpu",
                     "-t", "float", "-n", "70", "130",
                     "-i", str(packed), "-o", str(back)],
                    check=True, cwd=REPO)
@@ -51,18 +51,18 @@ with tempfile.TemporaryDirectory() as td:
 
     # --- pipes: compress stdin -> stdout (no seekable files needed) ------
     comp = subprocess.run(
-        [sys.executable, "-m", "ndzip_tpu.cli", "-e", "cpu",
+        [sys.executable, "-m", "ndzip_jax.cli", "-e", "cpu",
          "-t", "float", "-n", "70", "130"],
         input=raw.read_bytes(), capture_output=True, check=True, cwd=REPO)
     deco = subprocess.run(
-        [sys.executable, "-m", "ndzip_tpu.cli", "-d", "-e", "cpu",
+        [sys.executable, "-m", "ndzip_jax.cli", "-d", "-e", "cpu",
          "-t", "float", "-n", "70", "130"],
         input=comp.stdout, capture_output=True, check=True, cwd=REPO)
     assert deco.stdout == raw.read_bytes()
     print("stdin->stdout pipe round-trip OK")
 
     # --- the io layer directly: mmap input, ftruncate-grow mmap output ---
-    from ndzip_tpu import io as ndz_io
+    from ndzip_jax import io as ndz_io
 
     src = ndz_io.open_input(str(raw), use_mmap=True)
     dst = ndz_io.open_output(str(td / "copy.f32"), use_mmap=True)
@@ -74,9 +74,8 @@ with tempfile.TemporaryDirectory() as td:
     print("mmap input -> grow-mapped output copy OK")
 
 print("""
-On a TPU host, pre-populate the persistent kernel cache so the first
-production call is seconds, not a fresh Mosaic compile:
+Pre-populate the persistent compile cache so the first production call
+loads compiled programs instead of compiling them:
 
-    NDZIP_TPU_CACHE_DIR=~/.cache/ndzip_tpu python -m ndzip_tpu.warm \\
-        --shapes 16777216 1800x3600 --dtype float
+    python -m ndzip_jax.warm --shapes 16777216 1800x3600 --dtype float
 """)

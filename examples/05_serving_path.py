@@ -5,13 +5,8 @@ dataset shards wants the codec to consume and produce mesh-sharded
 decompress_sharded_device do interior slicing, per-shard encode/decode,
 stream assembly and border scatter all under jit on the devices.
 
-Also shows the adaptive decode window: the stream header's offset table
-bounds every block's compressed length before the decode launches, so
-the decoder can DMA the smallest window bucket covering the stream's
-largest block (`codec_pallas.win_rows_for`) instead of the worst case.
-
 Runs anywhere on an 8-device virtual CPU mesh; the same code runs over a
-physical TPU mesh unchanged.
+mesh of GPUs unchanged.
 """
 
 import sys
@@ -26,8 +21,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from ndzip_tpu import codec_pallas, golden  # noqa: E402
-from ndzip_tpu.parallel import (  # noqa: E402
+from ndzip_jax import golden  # noqa: E402
+from ndzip_jax.parallel import (  # noqa: E402
     compress_sharded_device,
     decompress_sharded_device,
     make_mesh,
@@ -54,15 +49,8 @@ assert length == elen and np.asarray(stream_dev[:length]).tobytes() == \
 print(f"compressed on-mesh: {length * 4} bytes "
       f"(ratio {length * 4 / state.nbytes:.3f}), bit-exact vs serial codec")
 
-# ---- the adaptive decode window this stream needs (vs the 34-row worst case)
-mbw = codec_pallas.max_block_words(np.asarray(stream_dev[:length]), shape, 32)
-win = codec_pallas.win_rows_for(mbw)
-print(f"largest block {mbw} words -> decode window bucket {win} rows "
-      f"(worst case {codec_pallas.WIN_ROWS})")
-
 # ---- decompress back to a mesh-sharded jax.Array: the device stream is
-# sliced into per-shard sub-streams ON DEVICE (only the offset table is
-# read host-side, to pick the static decode-window bucket)
+# split into per-shard sub-streams ON DEVICE, offset table included
 out_dev = decompress_sharded_device(stream_dev[:length], shape,
                                     np.float32, mesh)
 assert isinstance(out_dev, jax.Array)

@@ -12,7 +12,7 @@
 // layout is ours, since only the speed/ratio character matters for the
 // competitor measurement, not stream interchange.
 //
-// C ABI (ctypes-friendly, see ndzip_tpu/competitors.py):
+// C ABI (ctypes-friendly, see ndzip_jax/competitors.py):
 //   fpc_bound(n)                       -> worst-case compressed bytes
 //   fpc_compress(in, n, out, level)    -> compressed bytes written
 //   fpc_decompress(in, clen, out, n, level) -> values decoded (n on success)

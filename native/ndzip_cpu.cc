@@ -1,4 +1,4 @@
-// ndzip_tpu native CPU codec — a from-scratch C++17 implementation of the
+// ndzip_jax native CPU codec — a from-scratch C++17 implementation of the
 // ndzip stream format (bit-identical to the reference serial codec,
 // /root/reference/src/ndzip/cpu_codec.inl:580-659), exposed through a C ABI
 // for ctypes.

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ndzip_tpu import format as fmt
+from ndzip_jax import format as fmt
 
 
 def _rotl1(v: int, bits: int) -> int:

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from ndzip_tpu import api
+from ndzip_jax import api
 
 
 def test_unknown_backend_raises():
@@ -57,7 +57,7 @@ def test_offloader_round_trip_and_timing():
 
 def test_offloader_backend_resolution():
     off = api.make_offloader("auto", np.float64, 2)
-    assert off.backend in ("pallas", "xla", "cpu", "golden")
+    assert off.backend == "xla"
     data = np.ones((70, 66), np.float64)
     stream, _ = off.compress(data)
     assert np.array_equal(off.decompress(stream, data.shape), data)
@@ -69,59 +69,46 @@ def test_device_api_roundtrip_fp32():
     import jax
     import jax.numpy as jnp
 
-    from ndzip_tpu import codec_pallas, golden
+    from ndzip_jax import format as fmt, golden
 
-    prev_interpret = codec_pallas.INTERPRET
-    codec_pallas.INTERPRET = True
-    try:
-        data = np.sin(np.arange(4096 * 2 + 9, dtype=np.float32) * 0.01)
-        dev = jnp.asarray(data)
-        stream, length = api.compress_device(dev)
-        assert isinstance(stream, jax.Array) and isinstance(length, jax.Array)
-        g, gl = golden.compress(data)
-        assert int(length) == gl
-        assert np.asarray(stream[: int(length)]).tobytes() == g.tobytes()
+    data = np.sin(np.arange(4096 * 2 + 9, dtype=np.float32) * 0.01)
+    dev = jnp.asarray(data)
+    stream, length = api.compress_device(dev)
+    assert isinstance(stream, jax.Array) and isinstance(length, jax.Array)
+    g, gl = golden.compress(data)
+    assert int(length) == gl
+    assert np.asarray(stream[: int(length)]).tobytes() == g.tobytes()
 
-        out = api.decompress_device(stream, data.shape, np.float32)
-        assert isinstance(out, jax.Array)
-        assert out.dtype == jnp.float32
-        assert np.array_equal(np.asarray(out), data)
+    out = api.decompress_device(stream, data.shape, np.float32)
+    assert isinstance(out, jax.Array)
+    assert out.dtype == jnp.float32
+    assert np.array_equal(np.asarray(out), data)
 
-        # compress_device's buffer is already decode-ready: it carries the
-        # decoder's window slack, so the round trip involves no device
-        # reallocation (the documented zero-copy contract)
-        from ndzip_tpu import format as fmt
-        need = fmt.compressed_bound_u32(data.shape, 32) + \
-            codec_pallas.WIN_ROWS * codec_pallas.LANES
-        assert stream.shape[0] >= need
+    # compress_device's buffer is decode-ready as it is: exactly the
+    # decoder's bound, so the round trip needs no device reallocation
+    assert stream.shape[0] == fmt.compressed_bound_u32(data.shape, 32)
 
-        # short (exact-length) streams are padded internally
-        out2 = api.decompress_device(stream[: int(length)], data.shape)
-        assert np.array_equal(np.asarray(out2), data)
-    finally:
-        codec_pallas.INTERPRET = prev_interpret
+    # short (exact-length) streams are padded on the device
+    out2 = api.decompress_device(stream[: int(length)], data.shape)
+    assert isinstance(out2, jax.Array)
+    assert np.array_equal(np.asarray(out2), data)
 
 
 def test_device_api_roundtrip_fp64_planes():
     import jax.numpy as jnp
 
-    from ndzip_tpu import codec_pallas, golden
-    from ndzip_tpu.ops import u64pair
+    from ndzip_jax import golden
+    from ndzip_jax.ops import u64pair
 
-    prev_interpret = codec_pallas.INTERPRET
-    codec_pallas.INTERPRET = True
-    try:
-        data = np.cos(np.arange(4160, dtype=np.float64).reshape(65, 64))
-        lo, hi = u64pair.split(data.view(np.uint64))
-        stream, length = api.compress_device((jnp.asarray(lo), jnp.asarray(hi)))
-        g, gl = golden.compress(data)
-        assert np.asarray(stream[: int(length)]).tobytes() == g.tobytes()
+    data = np.cos(np.arange(4160, dtype=np.float64).reshape(65, 64))
+    lo, hi = u64pair.split(data.view(np.uint64))
+    stream, length = api.compress_device((jnp.asarray(lo), jnp.asarray(hi)))
+    g, gl = golden.compress(data)
+    assert np.asarray(stream[: int(length)]).tobytes() == g.tobytes()
 
-        out_lo, out_hi = api.decompress_device(stream, data.shape, np.float64)
-        got = u64pair.join(np.asarray(out_lo), np.asarray(out_hi)).view(np.float64)
-        assert np.array_equal(got.reshape(data.shape), data)
-    finally:
-        codec_pallas.INTERPRET = prev_interpret
+    out_lo, out_hi = api.decompress_device(stream, data.shape, np.float64)
+    got = u64pair.join(np.asarray(out_lo), np.asarray(out_hi)).view(np.float64)
+    assert np.array_equal(got.reshape(data.shape), data)
 
 
 def test_device_api_rejects_bad_dtype():
@@ -133,9 +120,8 @@ def test_device_api_rejects_bad_dtype():
 
 def test_offloader_device_timing_mode():
     """timing_mode='device' stages input first and fences the jitted codec
-    OF THE SELECTED BACKEND (offload.hh:16-24 kernel_duration semantics) —
-    the xla leg must never dispatch the Pallas codec."""
-    from ndzip_tpu import golden
+    (offload.hh:16-24 kernel_duration semantics)."""
+    from ndzip_jax import golden
 
     data = np.sin(np.arange(4096 * 2 + 3, dtype=np.float32))
     g, gl = golden.compress(data)
@@ -146,23 +132,6 @@ def test_offloader_device_timing_mode():
     out = off.decompress(stream, data.shape)
     assert off.timing.decompress_ns > 0
     assert np.array_equal(out, data)
-
-    # pallas leg (interpret mode on CPU): same semantics, same stream
-    from ndzip_tpu import codec_pallas
-
-    prev_interpret = codec_pallas.INTERPRET
-    codec_pallas.INTERPRET = True
-    try:
-        offp = api.Offloader(np.float32, 1, backend="pallas",
-                             timing_mode="device")
-        stream_p, words_p = offp.compress(data)
-        assert offp.timing.compress_ns > 0
-        assert words_p == gl and stream_p.tobytes() == g.tobytes()
-        out_p = offp.decompress(stream_p, data.shape)
-        assert offp.timing.decompress_ns > 0
-        assert np.array_equal(out_p, data)
-    finally:
-        codec_pallas.INTERPRET = prev_interpret
 
     # host backends silently fall back to wall timing
     off_host = api.Offloader(np.float32, 1, backend="golden", timing_mode="device")
@@ -184,20 +153,13 @@ def test_offloader_measure_chained():
 
 
 def test_backend_env_override_and_probe(monkeypatch):
-    """backend="auto" honors NDZIP_TPU_BACKEND, and an unusable/unreachable
-    jax backend (probe returns None, the down-accelerator case) degrades
-    auto-resolution to the host codecs instead of hanging."""
-    monkeypatch.setenv("NDZIP_TPU_BACKEND", "golden")
+    """backend="auto" honors NDZIP_BACKEND, explicit backends bypass
+    it, and auto resolves to the device codec."""
+    monkeypatch.setenv("NDZIP_BACKEND", "golden")
     assert api._resolve_backend("auto") == "golden"
-    monkeypatch.delenv("NDZIP_TPU_BACKEND")
-    # explicit backends bypass both the env var and the probe
+    monkeypatch.delenv("NDZIP_BACKEND")
     assert api._resolve_backend("cpu") == "cpu"
-
-    monkeypatch.setattr(api, "_probe_default_backend", lambda: None)
-    assert api._resolve_backend("auto") in ("cpu", "golden")
-    # on this suite's CPU platform the probe resolves and auto -> xla
-    monkeypatch.undo()
-    assert api._resolve_backend("auto") in ("xla", "pallas")
+    assert api._resolve_backend("auto") == "xla"
 
 
 def test_sharded_backend_roundtrip():
@@ -205,7 +167,7 @@ def test_sharded_backend_roundtrip():
     byte-identical streams."""
     import numpy as np
 
-    from ndzip_tpu import api, golden
+    from ndzip_jax import api, golden
 
     data = np.sin(np.arange(4096 * 9 + 7) * 1e-3).astype(np.float32)
     c = api.make_compressor(np.float32, 1, "sharded")
@@ -215,3 +177,109 @@ def test_sharded_backend_roundtrip():
     assert words == gl and stream.tobytes() == g.tobytes()
     out = d.decompress(stream, data.shape)
     assert np.array_equal(out, data)
+
+
+# ------------------------------------------------------ backend resolution
+
+def test_auto_resolves_to_xla(monkeypatch):
+    monkeypatch.delenv("NDZIP_BACKEND", raising=False)
+    assert api.make_compressor(np.float32, 1).__class__.__name__ == "_XlaCompressor"
+    assert api.make_offloader("auto", np.float32, 3).backend == "xla"
+
+
+@pytest.mark.parametrize("factory", [api.make_compressor, api.make_decompressor])
+def test_pallas_backend_rejected(factory):
+    with pytest.raises(ValueError, match="unknown backend 'pallas'"):
+        factory(np.float32, 1, backend="pallas")
+
+
+def test_pallas_rejected_by_cli(capsys):
+    from ndzip_jax import cli
+
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["-n", "4096", "-e", "pallas"])
+    assert "invalid choice: 'pallas'" in capsys.readouterr().err
+
+
+def test_jax_init_failure_raises(monkeypatch):
+    """A JAX that cannot start makes "auto" raise; it never degrades to
+    a host codec."""
+    import jax
+
+    def broken():
+        raise RuntimeError("Unable to initialize backend 'cuda'")
+
+    monkeypatch.delenv("NDZIP_BACKEND", raising=False)
+    monkeypatch.setattr(jax, "default_backend", broken)
+    with pytest.raises(RuntimeError, match="Unable to initialize"):
+        api._resolve_backend("auto")
+    with pytest.raises(RuntimeError, match="Unable to initialize"):
+        api.make_offloader("auto", np.float32, 1)
+    assert api._resolve_backend("golden") == "golden"
+
+
+# ------------------------------------------------ device API, every profile
+
+PROFILES = [
+    ((4096 * 3,), np.float32, "fp32 1d aligned"),
+    ((4096 * 3 + 11,), np.float32, "fp32 1d bordered"),
+    ((128, 192), np.float32, "fp32 2d aligned"),
+    ((130, 197), np.float32, "fp32 2d bordered"),
+    ((32, 32, 48), np.float32, "fp32 3d aligned"),
+    ((33, 34, 49), np.float32, "fp32 3d bordered"),
+    ((4096 * 2,), np.float64, "fp64 1d aligned"),
+    ((4096 * 2 + 5,), np.float64, "fp64 1d bordered"),
+    ((64, 128), np.float64, "fp64 2d aligned"),
+    ((66, 129), np.float64, "fp64 2d bordered"),
+    ((16, 32, 16), np.float64, "fp64 3d aligned"),
+    ((17, 33, 18), np.float64, "fp64 3d bordered"),
+]
+
+
+def _profile_data(shape, dtype):
+    rng = np.random.default_rng(sum(shape))
+    n = int(np.prod(shape))
+    data = np.sin(np.arange(n) * 3e-3) + 1e-3 * rng.standard_normal(n)
+    data[: n // 4] = 0
+    return data.astype(dtype).reshape(shape)
+
+
+@pytest.mark.parametrize("shape,dtype,label", PROFILES)
+def test_device_api_profiles(shape, dtype, label):
+    import jax
+    import jax.numpy as jnp
+
+    from ndzip_jax import golden
+    from ndzip_jax.ops import u64pair
+
+    data = _profile_data(shape, dtype)
+    g, _ = golden.compress(data)
+    if dtype == np.float64:
+        arg = tuple(jnp.asarray(p) for p in u64pair.split(data.view(np.uint64)))
+    else:
+        arg = jnp.asarray(data)
+    stream, length = api.compress_device(arg)
+    assert np.asarray(stream[: int(length)]).tobytes() == g.tobytes()
+    out = api.decompress_device(stream[: int(length)], shape, dtype)
+    for leaf in jax.tree_util.tree_leaves(out):
+        assert isinstance(leaf, jax.Array) and leaf.shape == shape
+    if dtype == np.float64:
+        words = u64pair.join(np.asarray(out[0]), np.asarray(out[1]))
+        assert np.array_equal(words, data.view(np.uint64))
+    else:
+        assert np.array_equal(np.asarray(out).view(np.uint32), data.view(np.uint32))
+
+
+@pytest.mark.parametrize("shape,dtype,label", PROFILES[1::2])
+def test_offloader_device_timing_profiles(shape, dtype, label):
+    from ndzip_jax import golden
+
+    data = _profile_data(shape, dtype)
+    g, gl = golden.compress(data)
+    off = api.Offloader(dtype, len(shape), backend="xla", timing_mode="device")
+    stream, words = off.compress(data)
+    assert off.timing.compress_ns > 0
+    assert words == gl and stream.tobytes() == g.tobytes()
+    out = off.decompress(stream, shape)
+    assert off.timing.decompress_ns > 0
+    assert out.dtype == dtype and out.tobytes() == data.tobytes()

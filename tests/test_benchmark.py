@@ -8,8 +8,8 @@ import os
 import numpy as np
 import pytest
 
-from ndzip_tpu import benchmark as bm
-from ndzip_tpu import plot_benchmark as pb
+from ndzip_jax import benchmark as bm
+from ndzip_jax import plot_benchmark as pb
 
 
 @pytest.fixture
@@ -131,7 +131,7 @@ def test_reference_plot_script_parses_harness_csv(registry, tmp_path):
 def test_fpc_competitor_roundtrip(registry):
     """The native FPC reimplementation (native/competitors.cc) round-trips
     bit-exactly and registers as a double-only benchmark algorithm."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -156,7 +156,7 @@ def test_pfpc_competitor_roundtrip(registry):
     """Chunk-parallel FPC round-trips bit-exactly for any thread count
     (including thread counts that do not divide the value count), decodes
     streams from a different thread count, and sweeps -T in the registry."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -189,7 +189,7 @@ def test_spdp_competitor_roundtrip(registry):
     """The native SPDP reimplementation (native/competitors.cc) round-trips
     any byte stream and registers for both data types (SPDP is
     dtype-agnostic, unlike FPC)."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -217,7 +217,7 @@ def test_lz4_competitor_roundtrip(registry):
     """The native LZ4 block-format implementation round-trips arbitrary
     byte streams (long runs exercise self-overlapping match copies and
     run-length extension bytes) and registers for both data types."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -248,7 +248,7 @@ def test_mpc_competitor_roundtrip(registry):
     """The native MPC reimplementation (LnVs|BIT|LVs|ZE pipeline,
     native/competitors.cc) round-trips bit-exactly for fp32 and fp64 at
     several dim strides and registers for both data types."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -278,7 +278,7 @@ def test_gfc_competitor_roundtrip(registry):
     """The native GFC reimplementation (sign/lead-zero-byte nibble codes,
     native/competitors.cc) round-trips bit-exactly — including NaN/Inf/
     denormal payloads — and registers as a double-only algorithm."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -310,7 +310,7 @@ def test_cascaded_competitor_roundtrip(registry):
     cascade, native/competitors.cc) round-trips bit-exactly for fp32 and
     fp64 under auto-tune and forced configs, and registers for both
     data types."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")
@@ -353,7 +353,7 @@ def test_spdp_payload_matches_author_code(tmp_path):
     import shutil
     import subprocess
 
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     src = "/root/reference/contrib/spdp/SPDP_11.c"
     if not os.path.exists(src) or shutil.which("gcc") is None:
@@ -430,7 +430,7 @@ def test_native_competitor_decoders_survive_corruption():
     """Truncated and bit-flipped streams must fail cleanly (RuntimeError
     from the -1 status) or decode to garbage — never crash: every native
     decoder bounds-checks its reads (native/competitors.cc)."""
-    from ndzip_tpu import competitors
+    from ndzip_jax import competitors
 
     if not competitors.fpc_available():
         pytest.skip("no C++ toolchain for the competitor build")

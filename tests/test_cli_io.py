@@ -1,6 +1,7 @@
 """CLI + IO layer tests (reference: compress.cc multi-chunk stream
 handling, io library round-trips)."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -8,8 +9,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ndzip_tpu import api, cli, format as fmt, golden
-from ndzip_tpu import io as ndz_io
+from ndzip_jax import api, cli, format as fmt, golden
+from ndzip_jax import io as ndz_io
 
 RNG = np.random.default_rng(77)
 REPO = Path(__file__).resolve().parent.parent
@@ -17,7 +18,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 def run_cli(args, stdin: bytes = b"") -> tuple[int, bytes, str]:
     res = subprocess.run(
-        [sys.executable, "-m", "ndzip_tpu.cli", *args],
+        [sys.executable, "-m", "ndzip_jax.cli", *args],
         input=stdin, capture_output=True, cwd=REPO)
     return res.returncode, res.stdout, res.stderr.decode()
 
@@ -129,12 +130,25 @@ def test_mmap_output_stream_grow_truncate(tmp_path):
 
 
 def test_warm_cli(tmp_path, monkeypatch):
-    """python -m ndzip_tpu.warm populates a persistent compile cache for
-    the requested shapes (XLA codec on CPU; pallas on TPU)."""
-    from ndzip_tpu import warm
+    """python -m ndzip_jax.warm populates a persistent compile cache for
+    the requested shapes; --cache-dir sets JAX_COMPILATION_CACHE_DIR."""
+    import jax
 
-    monkeypatch.setenv("NDZIP_TPU_CACHE_DIR", str(tmp_path / "cache"))
-    assert warm.run(["--shapes", "4224", "--dtype", "float"]) == 0
+    from ndzip_jax import utils, warm
+
+    cache = tmp_path / "cache"
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", True)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", "unused")
+    try:
+        assert warm.run(["--shapes", "4224", "--dtype", "float",
+                         "--cache-dir", str(cache)]) == 0
+        assert os.environ["JAX_COMPILATION_CACHE_DIR"] == str(cache)
+        assert any(cache.iterdir())
+    finally:
+        monkeypatch.undo()
+        utils.enable_compilation_cache()
+        jax.config.update("jax_enable_compilation_cache", enabled)
     with pytest.raises(SystemExit):
         warm.build_parser().parse_args(["--shapes", "bad"])
     # invalid shapes are skipped with a nonzero exit

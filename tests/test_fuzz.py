@@ -1,15 +1,14 @@
-"""Seeded fuzz: random shapes (tiled + fallback paths, borders, tiny and
-degenerate extents) x random sparsity patterns, checked bit-exactly
-against the golden codec through the Pallas interpret path.  The analog of
-the reference's randomized per-profile property tests
-(codec_profile_test.inl:37-96), widened across shape space."""
+"""Seeded fuzz: random shapes (borders, tiny and degenerate extents) x
+random sparsity patterns, checked bit-exactly against the golden codec
+through the public API's device codec.  The analog of the reference's
+randomized per-profile property tests (codec_profile_test.inl:37-96),
+widened across shape space."""
 
 import numpy as np
 import pytest
 
-from ndzip_tpu import codec_pallas, golden
-
-codec_pallas.INTERPRET = True
+import ndzip_jax
+from ndzip_jax import golden
 
 RNG = np.random.default_rng(1234)
 
@@ -47,8 +46,7 @@ CASES = [(d, dt, s) for s in range(2) for d in (1, 2, 3)
 
 
 PADDED_SHAPES = [
-    # grid minor axis NOT a multiple of the batch: exercises the padded
-    # tiled decode (fake blocks + clipped edge tiles), 2D and 3D
+    # block grid with an odd minor axis and borders on every axis, 2D and 3D
     ((200, 27 * 64 + 13), np.float32),
     ((17, 33, 15 * 16 + 9), np.float32),
     ((130, 27 * 64 + 5), np.float64),
@@ -57,15 +55,12 @@ PADDED_SHAPES = [
 
 @pytest.mark.parametrize("shape,dtype", PADDED_SHAPES)
 def test_padded_tile_decode_bit_exact(shape, dtype):
-    dims = len(shape)
-    G = codec_pallas.G_DEC if dtype == np.float32 else codec_pallas.G_DEC64
-    tc = codec_pallas._g_tiled_padded(shape, dims, G)
-    assert tc is not None and codec_pallas._tiled_layout(shape, dims, tc[0]) \
-        is None, f"{shape} does not exercise the padded path (tc={tc})"
     rng = np.random.default_rng(7)
     data = _random_data(rng, shape, dtype)
     g, gl = golden.compress(data)
-    out = codec_pallas.decompress(g, shape, dtype)
+    s, l = ndzip_jax.compress(data)
+    assert l == gl and s.tobytes() == g.tobytes(), f"{shape}: stream mismatch"
+    out = ndzip_jax.decompress(g, shape, dtype)
     wdt = np.uint64 if dtype == np.float64 else np.uint32
     assert np.array_equal(out.view(wdt), data.view(wdt)), f"{shape}"
 
@@ -76,10 +71,10 @@ def test_fuzz_round_trip_bit_exact(dims, dtype, seed):
     shape = _random_shape(rng, dims)
     data = _random_data(rng, shape, dtype)
     g, gl = golden.compress(data)
-    s, l = codec_pallas.compress(data)
+    s, l = ndzip_jax.compress(data)
     assert l == gl, f"{shape} {dtype}: length {l} != {gl}"
     assert s.tobytes() == g.tobytes(), f"{shape} {dtype}: stream mismatch"
-    out = codec_pallas.decompress(g, shape, dtype)
+    out = ndzip_jax.decompress(g, shape, dtype)
     wdt = np.uint64 if dtype == np.float64 else np.uint32
     assert np.array_equal(out.view(wdt), data.view(wdt)), f"{shape} {dtype}"
 
@@ -96,7 +91,7 @@ def test_fuzz_sharded_round_trip(dims, dtype, seed):
     (uneven shard padding, sub-stream slicing), bit-exact vs golden."""
     import jax
 
-    from ndzip_tpu.parallel import compress_sharded, decompress_sharded, \
+    from ndzip_jax.parallel import compress_sharded, decompress_sharded, \
         make_mesh
 
     rng = np.random.default_rng(7000 + 100 * seed + dims)

@@ -5,9 +5,9 @@ scalar spec encoder.  Test ladder mirrors the reference strategy
 import numpy as np
 import pytest
 
-from ndzip_tpu import format as fmt
-from ndzip_tpu import golden
-from ndzip_tpu.ops import bitops
+from ndzip_jax import format as fmt
+from ndzip_jax import golden
+from ndzip_jax.ops import bitops
 
 from scalar_spec import compress as scalar_compress, transpose_bits as scalar_transpose
 

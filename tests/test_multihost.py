@@ -13,7 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ndzip_tpu import golden
+from ndzip_jax import golden
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -24,7 +24,7 @@ WORKER = textwrap.dedent("""
     os.environ["JAX_PLATFORMS"] = "cpu"
     sys.path.insert(0, {repo!r})
     import numpy as np
-    from ndzip_tpu.parallel import multihost
+    from ndzip_jax.parallel import multihost
 
     multihost.init(f"localhost:{{port}}", nproc, pid, platform="cpu")
     import jax
@@ -36,7 +36,7 @@ WORKER = textwrap.dedent("""
         shape, dtype = (nproc * 32, 33, 35), np.float64
     elif case == "f32_2d_localmesh":
         # 2 local devices per process: decompress_multihost must shard the
-        # slab decode over the process-local mesh (every chip busy)
+        # slab decode over the process-local mesh (every device busy)
         shape, dtype = (nproc * 128, 200), np.float32
         import jax
         assert jax.local_device_count() == 2, jax.local_device_count()

@@ -5,8 +5,8 @@ codec_profile_test.inl:952-1043)."""
 import numpy as np
 import pytest
 
-from ndzip_tpu import format as fmt
-from ndzip_tpu import golden, native
+from ndzip_jax import format as fmt
+from ndzip_jax import golden, native
 
 if not native.available():
     pytest.skip("native codec unavailable", allow_module_level=True)

@@ -9,7 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from ndzip_tpu import golden
+from ndzip_jax import golden
 
 REF = Path("/root/reference")
 

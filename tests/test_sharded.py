@@ -5,8 +5,8 @@ import jax
 import numpy as np
 import pytest
 
-from ndzip_tpu import golden
-from ndzip_tpu.parallel import (
+from ndzip_jax import golden
+from ndzip_jax.parallel import (
     compress_sharded,
     compress_sharded_device,
     decompress_sharded,
@@ -103,7 +103,7 @@ def test_sharded_device_resident_decode(mesh8, shape, dtype):
     if dtype == np.float64:
         lo, hi = out
         assert isinstance(lo, jax.Array) and len(lo.sharding.device_set) == 8
-        from ndzip_tpu.ops import u64pair
+        from ndzip_jax.ops import u64pair
         joined = u64pair.join(np.asarray(lo), np.asarray(hi))
         assert np.array_equal(joined, data.view(np.uint64))
     else:
@@ -122,7 +122,7 @@ def test_sharded_device_resident_encode(mesh8, shape, dtype):
     stream[:length] byte-identical to golden."""
     import jax.numpy as jnp
 
-    from ndzip_tpu.ops import u64pair
+    from ndzip_jax.ops import u64pair
 
     data = RNG.standard_normal(shape).astype(dtype)
     data.reshape(-1)[:100] = 0
@@ -167,7 +167,7 @@ def test_sharded_device_decode_host_stream(mesh8):
 
 def test_sharded_device_jit_cache_reused(mesh8):
     """Repeat device-resident calls reuse the cached jitted program."""
-    from ndzip_tpu.parallel import sharded as sh
+    from ndzip_jax.parallel import sharded as sh
 
     shape = (4096 * 16,)
     data = RNG.standard_normal(shape).astype(np.float32)
@@ -215,8 +215,8 @@ def test_device_resident_footprint_o_shard(mesh8):
     the whole stream at once (cuda_codec.inl:290-297)."""
     import jax.numpy as jnp
 
-    from ndzip_tpu import format as fmt
-    from ndzip_tpu.parallel import sharded as sh
+    from ndzip_jax import format as fmt
+    from ndzip_jax.parallel import sharded as sh
 
     shape = (4096 * 128 + 33,)  # 128 blocks / 8 shards, with border
     num_hc = fmt.num_hypercubes(shape)
@@ -251,7 +251,7 @@ def test_device_resident_footprint_o_shard(mesh8):
     stream, slen = golden.compress(data)
     S = -(-slen // (n * 128)) * 128
     padded_len = n * S
-    ctx = sh._decode_setup(dshape, np.dtype(np.float32), mesh8, None)
+    ctx = sh._decode_setup(dshape, np.dtype(np.float32), mesh8)
     dec = sh._build_decompress_device_ring(
         dshape, np.dtype(np.float32), mesh8, ctx, padded_len)
     in_sh = NamedSharding(mesh8, PartitionSpec(sh.AXIS))

@@ -1,20 +1,24 @@
 """Observability utilities (the NDZIP_VERBOSE-analog surface,
 reference: common.hh:630-633, sycl_bits.hh:38-55)."""
 
-import numpy as np
+import os
+from pathlib import Path
 
-from ndzip_tpu import utils
+import numpy as np
+import pytest
+
+from ndzip_jax import utils
 
 
 def test_verbose_gate(monkeypatch, capsys):
     utils.verbose.cache_clear()
-    monkeypatch.setenv("NDZIP_TPU_VERBOSE", "1")
+    monkeypatch.setenv("NDZIP_VERBOSE", "1")
     assert utils.verbose() is True
     utils.log("hello")
-    assert "[ndzip-tpu] hello" in capsys.readouterr().err
+    assert "[ndzip] hello" in capsys.readouterr().err
 
     utils.verbose.cache_clear()
-    monkeypatch.setenv("NDZIP_TPU_VERBOSE", "0")
+    monkeypatch.setenv("NDZIP_VERBOSE", "0")
     assert utils.verbose() is False
     utils.log("quiet")
     assert capsys.readouterr().err == ""
@@ -23,7 +27,7 @@ def test_verbose_gate(monkeypatch, capsys):
 
 def test_trace_prints_under_verbose(monkeypatch, capsys):
     utils.verbose.cache_clear()
-    monkeypatch.setenv("NDZIP_TPU_VERBOSE", "1")
+    monkeypatch.setenv("NDZIP_VERBOSE", "1")
     with utils.trace("unit-test-region"):
         pass
     err = capsys.readouterr().err
@@ -39,16 +43,75 @@ def test_device_time_ns():
     assert ns > 0
 
 
-def test_compilation_cache(tmp_path, monkeypatch):
+@pytest.fixture
+def cache_env(monkeypatch):
+    """Lets a test move and use the compile cache; puts it back afterwards."""
+    import jax
+
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", True)
+    yield monkeypatch
+    monkeypatch.undo()
+    utils.enable_compilation_cache()
+    jax.config.update("jax_enable_compilation_cache", enabled)
+
+
+def test_compilation_cache(tmp_path, cache_env):
     import jax
     import jax.numpy as jnp
 
     cache = tmp_path / "xla-cache"
-    got = utils.enable_compilation_cache(str(cache))
-    assert got == str(cache) and cache.is_dir()
+    cache_env.setenv("JAX_COMPILATION_CACHE_DIR", str(cache))
+    got = utils.enable_compilation_cache()
+    assert got == str(cache)
     assert jax.config.jax_compilation_cache_dir == str(cache)
-    # jitted programs still run with the cache enabled
-    assert int(jax.jit(lambda a: a + 1)(jnp.int32(1))) == 2
-    # maybe_* is a no-op without the env var (no exception, no state)
-    monkeypatch.delenv("NDZIP_TPU_CACHE_DIR", raising=False)
-    utils.maybe_enable_compilation_cache()
+    # jitted programs still run, and compile into the new directory
+    assert int(jax.jit(lambda a: a * 3 + 1)(jnp.int32(5))) == 16
+    assert cache.is_dir() and any(cache.iterdir())
+
+
+def test_compilation_cache_env_var_sets_nothing_else(tmp_path, cache_env):
+    import jax
+
+    cache_env.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "c"))
+    for _ in range(2):
+        assert utils.enable_compilation_cache() == str(tmp_path / "c")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "c")
+    assert not (tmp_path / "c").exists() or (tmp_path / "c").is_dir()
+    assert utils.CACHE_DIR != str(tmp_path / "c")
+
+
+def test_compilation_cache_default_is_one_fixed_path_in_the_checkout(cache_env):
+    import jax
+
+    cache_env.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    first = utils.enable_compilation_cache()
+    second = utils.enable_compilation_cache()
+    assert first == second == utils.CACHE_DIR
+    assert jax.config.jax_compilation_cache_dir == utils.CACHE_DIR
+    repo = Path(__file__).resolve().parent.parent
+    assert Path(first) == repo / ".jax_cache"
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
+
+
+def test_device_codec_import_enables_the_cache():
+    import jax
+
+    from ndzip_jax import codec_xla  # noqa: F401
+
+    expect = os.environ.get("JAX_COMPILATION_CACHE_DIR") or utils.CACHE_DIR
+    assert jax.config.jax_compilation_cache_dir == expect
+    assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.0
+
+
+def test_device_op_times_needs_a_device_plane(tmp_path):
+    import jax
+    import jax.numpy as jnp
+
+    with pytest.raises(ValueError, match="no trace"):
+        utils.device_op_times(str(tmp_path))
+    with utils.profiler_trace(str(tmp_path)):
+        jax.block_until_ready(jax.jit(lambda a: a + 1)(jnp.ones(8)))
+    # a CPU run has host planes only: there is no device time to report
+    with pytest.raises(ValueError, match="no device plane"):
+        utils.device_op_times(str(tmp_path))

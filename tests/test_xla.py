@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ndzip_tpu import codec_xla, format as fmt, golden
-from ndzip_tpu.ops import bitops, u64pair
+from ndzip_jax import codec_xla, format as fmt, golden
+from ndzip_jax.ops import bitops, u64pair
 
 RNG = np.random.default_rng(4242)
 
